@@ -1,16 +1,15 @@
-"""Benchmark: tactile frames/sec (RGB + markers) on the current chip.
+"""Benchmark: flagship env steps per second on one GPU.
 
-Prints ONE JSON line: {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}.
+Steps the flagship ball-rolling task (TacEx-Ball-Rolling-Taxim-Fots-v0 — the
+reference's 4096-env RL config: 32x24 camera, Taxim optical RGB x FOTS
+marker composition) at 4096 environments, full env step in the loop (IK +
+servo + contact physics + depth render + tactile RGB + markers +
+rewards/dones/resets/obs). A frame is one environment-step producing one
+tactile observation.
 
-Measures the BASELINE.md north-star configuration literally: the flagship
-ball-rolling task (TacEx-Ball-Rolling-Taxim-Fots-v0 — the reference's 4096-env
-RL config: 32x24 camera, Taxim optical RGB x FOTS marker composition) stepped
-at 4096 environments, full env step in the loop (IK + servo + contact physics
-+ depth render + tactile RGB + markers + rewards/dones/resets/obs). A frame =
-one environment-step producing one tactile observation.
-
-vs_baseline = value / 6250 (the >= 50k frames/s on v5p-8 target split across
-8 chips; we run on one chip).
+Prints ONE JSON line: {"metric", "value", "unit", "device", "card"}, with
+the device as JAX reports it and the card's name and power limit as
+nvidia-smi reports them. Exits 2, printing no result, when JAX finds no GPU.
 
 For the sensor-only pipeline at the reference benchmark-harness resolution
 (320x240), see scripts/benchmarking/run_ball_rolling_experiment.py.
@@ -19,6 +18,8 @@ For the sensor-only pipeline at the reference benchmark-harness resolution
 from __future__ import annotations
 
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -26,16 +27,21 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import os
-
 NUM_ENVS = int(os.environ.get("BENCH_NUM_ENVS", 4096))
 ITERS = int(os.environ.get("BENCH_ITERS", 30))
-PER_CHIP_TARGET = 50_000 / 8
 
 
-def main() -> None:
+def main() -> int:
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench: no GPU (JAX's first device is {dev.platform}); nothing was measured", file=sys.stderr)
+        return 2
+
     from tacex_tpu import envs
+    from tacex_tpu.utils.compile_cache import enable_compile_cache
+    from tacex_tpu.utils.profiling import gpu_card
 
+    enable_compile_cache()
     env = envs.make("TacEx-Ball-Rolling-Taxim-Fots-v0", num_envs=NUM_ENVS)
     state = env.init_state(jax.random.PRNGKey(0))
     state, _ = env.reset_all(state)
@@ -57,18 +63,19 @@ def main() -> None:
     jax.block_until_ready(obs["vision_obs"])
     dt = time.perf_counter() - t0
 
-    fps = NUM_ENVS * ITERS / dt
     print(
         json.dumps(
             {
-                "metric": "tactile_env_steps_per_sec_per_chip_rgb_markers_4096envs",
-                "value": round(fps, 1),
+                "metric": f"tactile_env_steps_per_sec_rgb_markers_{NUM_ENVS}envs",
+                "value": NUM_ENVS * ITERS / dt,
                 "unit": "frames/s",
-                "vs_baseline": round(fps / PER_CHIP_TARGET, 3),
+                "device": {"platform": dev.platform, "kind": dev.device_kind, "count": len(jax.devices())},
+                "card": gpu_card(),
             }
         )
     )
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

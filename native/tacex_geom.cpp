@@ -4,12 +4,13 @@
 // in native code (libuipc's uipc::geometry module: tetmesh construction,
 // label_surface / label_triangle_orient / flip_inward_triangles — reference
 // source/tacex_uipc/tacex_uipc/objects/uipc_object.py:181-187 calls into it).
-// The TPU compute path stays in XLA; this library covers the scene-build
+// The device compute path stays in XLA; this library covers the scene-build
 // runtime: structured tet meshing, boundary-face extraction with outward
 // orientation, lumped mass computation, and barycentric marker binding.
 // Exposed through a plain C ABI for ctypes (no pybind11 in this image).
 //
-// Build: make -C native   (g++ -O2 -shared -fPIC)
+// Build: tacex_tpu.native builds it on first use, or make -C native
+// (g++ -O2 -shared -fPIC)
 
 #include <cmath>
 #include <cstdint>

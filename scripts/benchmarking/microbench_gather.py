@@ -1,11 +1,10 @@
-"""Micro-benchmark: batched dynamic gathers vs one-hot matmuls on TPU.
+"""Micro-benchmark: batched dynamic gathers vs one-hot matmuls.
 
-Grounds the round-4 coupled-solver optimization: the grasp-lift energy graph
-re-executes per-env dynamic-index gathers (contact-candidate triangle
-fetches) inside every energy/hvp evaluation (~400 per env-step). TPU gathers
-are issue-bound (~ns/row, BASELINE.md sensor log) and scale linearly with
-the env batch; a (R, V) one-hot matrix applied as a matmul does the same
-fetch on the MXU at batched-GEMM rates.
+Compares the two ways the coupled solver can fetch contact-candidate
+triangle corners: the grasp-lift energy graph re-executes per-env
+dynamic-index gathers inside every energy/hvp evaluation (~400 per
+env-step); a (R, V) one-hot matrix applied as a matmul does the same fetch
+as a batched GEMM.
 
 Shapes mirror the grasp-lift world: V=150 union gel verts, R=1584 gathered
 triangle-corner rows, plus the tiny cube table (Va=8).
@@ -74,7 +73,7 @@ def main() -> None:
         return acc
 
     rows = [
-        ("dynamic_gather", timeit(dyn, x, idx)),
+        ("index_gather", timeit(dyn, x, idx)),
         ("static_idx_gather", timeit(sta, x)),
         ("onehot_matmul", timeit(oh, x, onehot)),
         ("onehot_static_matmul", timeit(oh_s, x)),

@@ -1,15 +1,12 @@
 """Ablation profile of the coupled FEM+ABD solve (grasp-lift scene).
 
-Round-4 question: grasp-lift throughput saturates at ~31 env-steps/s/chip
-with near-linear per-env cost (~31 ms/env-step) for a ~150-vertex system —
-6 orders of magnitude off the chip's FLOP rate. This script isolates where
-the time goes by sweeping solver knobs on the real env step:
+Question: where does the time of a coupled step go, for a ~150-vertex
+system whose per-env cost grows near-linearly with the env count? This
+script isolates it by sweeping solver knobs on the real env step:
 
   newton x cg x line-search give the per-phase split;
-  contact-family knobs (self/ee/coupling) isolate candidate-set gathers —
-  the suspected wall: per-env dynamic-index gathers are issue-bound on TPU
-  (~3 ns/row, BASELINE.md sensor log) and re-execute inside every
-  energy/hvp evaluation (~400 per env-step).
+  contact-family knobs (self/ee/coupling) isolate candidate-set gathers,
+  which re-execute inside every energy/hvp evaluation (~400 per env-step).
 
 Usage: python scripts/benchmarking/profile_coupled.py [--envs 16]
 Prints one JSON line per config.

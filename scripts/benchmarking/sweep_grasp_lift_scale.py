@@ -1,9 +1,8 @@
 """Scale-knee sweep for the coupled grasp-lift world (round-4 verdict #6).
 
-Sweeps env count x pad resolution on the real chip and writes one JSON
+Sweeps env count x pad resolution on the accelerator and writes one JSON
 line per config (same row schema as benchmark_grasp_lift.py). Each config
-runs in-process sequentially; the TPU holds one program at a time, so the
-sweep must own the chip.
+runs in-process sequentially, so the sweep owns the device.
 
 Usage:
     python scripts/benchmarking/sweep_grasp_lift_scale.py \

@@ -2,7 +2,7 @@
 
 Counterpart of reference scripts/demos/follow_goal_franka_single_gsmini.py
 (there: an Omniverse GUI frame the user drags, a DifferentialIKController
-tracking it, and live tactile rendering). Headless TPU version: the goal pose
+tracking it, and live tactile rendering). Headless version: the goal pose
 follows a scripted square-with-press trajectory, the arm tracks it with the
 same damped-least-squares IK used by the task envs, and whenever the press
 segment brings the gel against the plate-mounted test sphere the tactile

@@ -5,7 +5,7 @@ PhysX Franka whose two GelSight gel pads are libuipc FEM bodies coupled via
 UipcIsaacAttachments). Here:
 
   * the two finger gels are ONE batched SoftBodyModel solve with batch
-    axis = fingers (the TPU-first trick: the batched IPC solver does not care
+    axis = fingers (the batched IPC solver does not care
     that the "envs" are two gels of the same robot),
   * each gel is attached (top face) to its finger frame and pressed against
     the ball; the ball feels the action-reaction of both gels' contact

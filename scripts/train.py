@@ -1,4 +1,4 @@
-"""Train PPO on a TacEx-TPU task environment.
+"""Train PPO or SAC on a tacex_tpu task environment.
 
 Replaces the reference's per-RL-library launchers
 (reference scripts/reinforcement_learning/{skrl,rsl_rl,rl_games}/train.py):
@@ -26,10 +26,11 @@ from pathlib import Path as _Path
 _sys.path.insert(0, str(_Path(__file__).resolve().parents[1]))  # repo root, so scripts run from anywhere
 
 from tacex_tpu import envs
-from tacex_tpu.rl import PPO, PPOConfig
+from tacex_tpu.rl import PPO
+from tacex_tpu.utils.compile_cache import enable_compile_cache
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--task", default="TacEx-Ball-Rolling-Taxim-Fots-v0")
     p.add_argument("--algorithm", choices=["ppo", "sac"], default="ppo")
@@ -60,43 +61,56 @@ def main() -> None:
         help="agent config override on top of the per-task tuned values, "
         "e.g. --agent_cfg lr_max=1e-3 (repeatable)",
     )
-    args = p.parse_args()
+    return p
 
+
+def _parse_kv(pairs) -> dict:
+    """KEY=VALUE overrides; values parsed as Python literals where they parse."""
     import ast
 
-    def _parse_kv(pairs):
-        out = {}
-        for kv in pairs:
-            k, v = kv.split("=", 1)
-            try:
-                v = ast.literal_eval(v)
-            except (ValueError, SyntaxError):
-                pass  # keep as string
-            out[k] = v
-        return out
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass  # keep as string
+        out[k] = v
+    return out
 
-    env_overrides = _parse_kv(args.env_cfg)
-    agent_overrides = _parse_kv(args.agent_cfg)
-    env = envs.make(args.task, num_envs=args.num_envs, **env_overrides)
+
+def setup(args: argparse.Namespace):
+    """Build the env, the agent and its train state as the command line
+    asks, the state sharded over all devices under ``--shard``. Returns
+    ``(agent_cfg, agent, train_state)``."""
+    env = envs.make(args.task, num_envs=args.num_envs, **_parse_kv(args.env_cfg))
     from tacex_tpu.rl.agents import agent_cfg_for
 
+    agent_overrides = _parse_kv(args.agent_cfg)
     if args.algorithm == "sac":
         from tacex_tpu.rl import SAC
 
         cfg = agent_cfg_for(args.task, "sac", rollout_steps=args.rollouts, **agent_overrides)
-        ppo = SAC(env, cfg)
+        agent = SAC(env, cfg)
     else:
         cfg = agent_cfg_for(args.task, "ppo", rollouts=args.rollouts, **agent_overrides)
-        ppo = PPO(env, cfg)
+        agent = PPO(env, cfg)
     print(f"agent cfg ({args.algorithm}): {cfg}")
-    ts = ppo.init(jax.random.PRNGKey(args.seed))
+    ts = agent.init(jax.random.PRNGKey(args.seed))
 
     if args.shard and len(jax.devices()) > 1:
         from tacex_tpu.parallel import env_mesh, shard_env_tree
 
-        mesh = env_mesh()
-        ts = shard_env_tree(ts, mesh, args.num_envs)
+        ts = shard_env_tree(ts, env_mesh(), args.num_envs)
         print(f"sharded over {len(jax.devices())} devices")
+    return cfg, agent, ts
+
+
+def run(args: argparse.Namespace):
+    """Train as the command line asks. Returns the final train state and
+    ``{"compile_s": ..., "iters": [per-iteration log lines as dicts]}``."""
+    env_overrides = _parse_kv(args.env_cfg)
+    cfg, ppo, ts = setup(args)
 
     ckpt_mgr = None
     if args.checkpoint_dir:
@@ -142,6 +156,11 @@ def main() -> None:
         viz.add_frame("tactile_obs", (f - lo) / max(hi - lo, 1e-6))
 
     step_fn = ppo.jit_train_step()
+    t0 = time.time()
+    step_fn.lower(ts).compile()  # the jitted calls below reuse this executable
+    compile_s = time.time() - t0
+    print(json.dumps({"compile_s": round(compile_s, 3)}), flush=True)
+    history = []
     t_start = time.time()
     for it in range(args.iterations):
         t0 = time.time()
@@ -154,8 +173,10 @@ def main() -> None:
                 "iter": it,
                 "env_steps": int(ts.steps),
                 "steps_per_sec": round(sps, 1),
+                "iter_s": dt,
                 **{k: round(v, 5) for k, v in metrics.items()},
             }
+            history.append(line)
             print(json.dumps(line), flush=True)
             if metrics_fp is not None:
                 metrics_fp.write(json.dumps(line) + "\n")
@@ -180,6 +201,12 @@ def main() -> None:
         metrics_fp.close()
         print(f"metrics jsonl -> {Path(run_dir) / 'metrics.jsonl'}")
     print(f"done: {int(ts.steps)} env steps in {time.time() - t_start:.1f}s")
+    return ts, {"compile_s": compile_s, "iters": history}
+
+
+def main() -> None:
+    enable_compile_cache()
+    run(build_parser().parse_args())
 
 
 if __name__ == "__main__":

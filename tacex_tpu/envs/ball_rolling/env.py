@@ -1,7 +1,7 @@
 """Ball-rolling tactile task: push/roll a ball to a goal with a GelSight
 fingertip.
 
-TPU rebuild of the reference flagship env
+Batched rebuild of the reference flagship env
 (reference source/tacex_tasks/.../ball_rolling_tactile/ball_rolling_taxim_fots.py):
 a Franka with a GelSight Mini on the flange presses a 5 mm ball on a plate
 and rolls it to a randomized goal. Everything — IK action pipeline, servo,

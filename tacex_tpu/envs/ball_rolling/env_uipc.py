@@ -1,6 +1,6 @@
 """Ball rolling with a soft FEM gel pad (UIPC env variant) — batched.
 
-TPU rebuild of the reference's ``TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0``
+Batched rebuild of the reference's ``TacEx-Ball-Rolling-Tactile-RGB-Uipc-v0``
 (reference source/tacex_tasks/.../ball_rolling_tactile/
 ball_rolling_tactile_rgb_uipc.py: UipcRLEnv with a StableNeoHookean gel pad
 attached to the robot, ball + gelpad in the IPC world, tactile RGB obs).

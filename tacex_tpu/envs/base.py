@@ -1,6 +1,6 @@
 """Direct-RL-style environment base: pure-functional vectorized envs.
 
-TPU-native counterpart of Isaac Lab's ``DirectRLEnv`` /
+Batched JAX counterpart of Isaac Lab's ``DirectRLEnv`` /
 ``UipcRLEnv`` (reference source/tacex_uipc/.../direct_uipc_rl_env.py:41-671):
 instead of a stateful object mutating torch buffers around a PhysX process,
 an env here is (cfg, pure ``reset``/``step`` functions over one state

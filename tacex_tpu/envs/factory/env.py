@@ -1,6 +1,6 @@
 """Factory contact-rich insertion tasks with tactile-equipped gripper.
 
-TPU rebuild of the reference's Factory port (reference
+Batched rebuild of the reference's Factory port (reference
 source/tacex_tasks/tacex_tasks/factory/factory_env.py + factory_env_cfg.py +
 factory_tasks_cfg.py + factory_control.py): Franka + two-finger gripper
 holding an asset (peg / gear / nut) that must be inserted onto a fixed asset

@@ -1,6 +1,6 @@
 """Pole balancing on the tactile sensor.
 
-TPU rebuild of the reference ``TacEx-Pole-Balancing-Base-v0``
+Batched rebuild of the reference ``TacEx-Pole-Balancing-Base-v0``
 (reference source/tacex_tasks/tacex_tasks/pole_balancing/base_env.py): the
 Franka holds the GelSight face-up; a pole stands on the gel pad and must be
 kept balanced while the end-effector tracks a target height. Observations are

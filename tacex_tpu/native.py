@@ -2,27 +2,58 @@
 
 The C++ library provides the host-side scene-build operations (tet meshing,
 boundary extraction, lumped masses, barycentric binding — see
-native/tacex_geom.cpp); every entry point has a numpy fallback in
-physics/soft/mesh.py, so the framework works without the .so (build with
-``make -C native``). ``available()`` reports which path is active.
+native/tacex_geom.cpp). It is built from that source on first use (or with
+``make -C native``); every entry point has a numpy fallback in
+physics/soft/mesh.py, so the framework works where no C++ compiler is
+installed. ``available()`` reports which path is active.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_LIB_PATH = Path(__file__).resolve().parents[1] / "native" / "libtacex_geom.so"
+_NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
+_SRC_PATH = _NATIVE_DIR / "tacex_geom.cpp"
+_LIB_PATH = _NATIVE_DIR / "libtacex_geom.so"
+_CXXFLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-Wall")  # as native/Makefile
 _lib = None
+
+
+def build() -> bool:
+    """Compile the library from source unless an up-to-date one exists.
+
+    Returns whether the library exists afterwards (False when no C++
+    compiler is installed). Concurrent callers each compile into a temp
+    file and rename it into place, so none loads a half-written library.
+    """
+    if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC_PATH.stat().st_mtime:
+        return True
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        return False
+    fd, tmp = tempfile.mkstemp(dir=_NATIVE_DIR, prefix=".libtacex_geom.", suffix=".so")
+    os.close(fd)
+    try:
+        subprocess.run([cxx, *_CXXFLAGS, "-o", tmp, str(_SRC_PATH)], check=True, capture_output=True)
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return True
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists():
+    if not build():
         return None
     lib = ctypes.CDLL(str(_LIB_PATH))
     i32p = ctypes.POINTER(ctypes.c_int32)

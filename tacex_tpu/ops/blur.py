@@ -1,12 +1,11 @@
-"""Separable Gaussian blur, TPU-first.
+"""Separable Gaussian blur.
 
 The reference Taxim implementation blurs with full 2-D FFT convolutions
-(reference source/tacex/.../gpu_taxim/sim/taxim_jax.py:328-374). On TPU a
-separable Gaussian is best expressed as two dense band-matrix multiplies
-(reflect padding folded into the operators): the MXU runs them at full f32
-precision faster than XLA's conv lowering, with no FFT round-trips through
-HBM. Kernel sizes replicate the reference rule (outermost weight < 1e-5,
-forced odd) so outputs match to float tolerance.
+(reference source/tacex/.../gpu_taxim/sim/taxim_jax.py:328-374). Here a
+separable Gaussian is two dense band-matrix multiplies (reflect padding
+folded into the operators) at full f32 precision. Kernel sizes replicate
+the reference rule (outermost weight < 1e-5, forced odd) so outputs match
+to float tolerance.
 
 All entry points are shape-static and jit/vmap-safe.
 """
@@ -46,11 +45,8 @@ def _gaussian_kernel1d(sigma: float, ksize: int) -> np.ndarray:
 def _band_matrix(n: int, sigma: float, ksize: int) -> np.ndarray:
     """Dense (n, n) Gaussian blur operator with reflect padding folded in.
 
-    Expressing the separable blur as two band-matrix multiplies instead of
-    1-D convolutions is the TPU move: XLA lowers small depthwise convs to
-    bf16 MXU passes with ~2e-3 error, while an explicit matmul at HIGHEST
-    precision is exact to f32 *and* faster (measured on v5e: 7 pyramid blurs
-    at 256x240x320: 18.8 ms conv -> 11.2 ms matmul, max err 2e-3 -> 2e-7).
+    Applied at HIGHEST precision, so the blur is exact to f32 (default
+    precision runs f32 matmuls in TF32 on a GPU).
     """
     ker = _gaussian_kernel1d(sigma, ksize)
     p = (ksize - 1) // 2
@@ -125,11 +121,11 @@ def gaussian_blur(
 
 
 def box_dilate(mask: jax.Array, kernel_hw: tuple[int, int]) -> jax.Array:
-    """Binary dilation by a (kh, kw) box via max-pooling (VPU reduce-window).
+    """Binary dilation by a (kh, kw) box via max-pooling (reduce-window).
 
     Replaces the reference's two-round ones-kernel convolution used to grow the
-    shadow attachment area (taxim_jax.py:206-218) — a max-window is the
-    TPU-native formulation of the same ``!= 0`` test.
+    shadow attachment area (taxim_jax.py:206-218) — a max-window is an exact
+    formulation of the same ``!= 0`` test.
     """
     kh, kw = int(kernel_hw[0]), int(kernel_hw[1])
     kh, kw = max(kh, 1), max(kw, 1)

@@ -1,6 +1,6 @@
 """Second-order Franka + gripper dynamics: mass matrix, gravity, torque PD.
 
-TPU-native replacement for the PhysX articulation the reference Factory
+Batched JAX replacement for the PhysX articulation the reference Factory
 tasks control at torque level (reference
 source/tacex_tasks/tacex_tasks/factory/factory_control.py:19-93
 ``compute_dof_torque``: operational-space task wrench -> joint torques +
@@ -10,7 +10,7 @@ franka_gsmini_single_uipc.py:29-108).
 Model: the 7 revolute arm joints plus 2 prismatic finger joints (9 DOF).
   * mass matrix M(q) from per-link CoM Jacobians
         M = sum_i m_i J_v_i^T J_v_i + J_w_i^T (R_i I_i R_i^T) J_w_i
-    — all einsums, batched, MXU-friendly; no Featherstone recursion needed
+    — all einsums, batched; no Featherstone recursion needed
     at n=9.
   * gravity torque as the EXACT gradient of potential energy via jax.grad
     (guaranteed consistent with the kinematics — no hand-derived RNEA).

@@ -1,6 +1,6 @@
 """Batched 6-DoF rigid body state + semi-implicit Euler integration.
 
-TPU-native replacement for the PhysX rigid-body layer the reference scenes
+Batched JAX replacement for the PhysX rigid-body layer the reference scenes
 use (ball, plate, pole props — reference
 source/tacex_tasks/.../ball_rolling_taxim_fots.py:580-633). One pytree of
 ``(N, B, ...)`` arrays for N envs x B bodies, stepped inside jit; no

@@ -1,6 +1,6 @@
 """Franka Panda kinematics: batched FK, geometric Jacobian, differential IK.
 
-TPU-native replacement for the PhysX articulation + isaaclab
+Batched JAX replacement for the PhysX articulation + isaaclab
 ``DifferentialIKController`` pipeline the reference tasks drive
 (reference source/tacex_tasks/.../ball_rolling_taxim_fots.py:457-459,
 648-658: 6-dim delta-pose command -> damped-least-squares IK from the PhysX

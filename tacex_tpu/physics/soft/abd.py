@@ -1,6 +1,6 @@
 """Batched Affine Body Dynamics (ABD) with IPC barrier contact.
 
-TPU-native counterpart of libuipc's ``AffineBodyConstitution`` +
+Batched counterpart of libuipc's ``AffineBodyConstitution`` +
 ``RotatingMotor`` / ``SoftTransformConstraint`` (reference scope:
 source/tacex_uipc/examples/libuipc-samples/*.py — hello_libuipc, walking
 cube, wrecking balls, ramp sliding, screw&nut all run on these; and
@@ -12,8 +12,8 @@ constitutions). Design, re-thought for XLA:
     A scene of B bodies is a single (B*12,) unknown — the implicit Euler
     incremental potential is minimized with a DENSE Newton solve
     (``jax.hessian`` + ``jnp.linalg.solve``): for B <= ~32 the Hessian is a
-    few-hundred-square matrix, a perfect MXU tile, and envs are vmapped so
-    the batch dimension keeps the chip busy. No sparse assembly, no CUDA
+    few-hundred-square matrix, and envs are vmapped so the batch dimension
+    keeps the device busy. No sparse assembly, no CUDA
     kernel zoo (libuipc's ABD pipeline) — one fused autodiff energy.
   * Orthogonality ("rigidity") energy: kappa * V * ||A^T A - I||_F^2 — the
     standard ABD shape potential; kappa plays the role of the reference's
@@ -52,6 +52,7 @@ from .ipc import (
     barrier_extended,
     barrier_force_mag,
     edge_edge_mollifier,
+    full_f32_solve,
 )
 
 
@@ -75,12 +76,10 @@ class AbdSolverCfg:
     # the parallel-edge mollifier (ipc.edge_edge_mollifier).
     ee_contact_k: int = 4
     hessian_reg: float = 1e-6  # Tikhonov floor for the dense Newton solve
-    # "dense": jax.hessian + jnp.linalg.solve — the measured winner at every
-    # scale tried (round-4 sweep, 10-body pile on v5e, BASELINE.md: dense
-    # 13.3 ms/step@1env, 93.5@8, 434@32, 913@64 vs CG 46/313/1204/2409 —
-    # CG's 32 sequential hvp evaluations lose to one batched (12B)^2
-    # LU at B<=~32 bodies, and BOTH paths vmap over envs with near-linear
-    # cost, so there is no separate "batched RL-scale path"). "cg":
+    # "dense": jax.hessian + jnp.linalg.solve — one batched (12B)^2 LU in
+    # place of CG's 32 sequential hvp evaluations at B<=~32 bodies; BOTH
+    # paths vmap over envs, so there is no separate "batched RL-scale
+    # path". Which one is faster on the GPU is not measured. "cg":
     # matrix-free conjugate gradient on Hessian-vector products with a
     # per-body 12x12 block preconditioner (inertia + orthogonality +
     # constraint, inverted once per step) — kept for body counts where the
@@ -90,10 +89,9 @@ class AbdSolverCfg:
     cg_iters: int = 32
     # assemble the Newton Hessian analytically (J^T G J structure, see
     # _assemble_hessian) instead of jax.hessian. Verified identical to 1e-7;
-    # MEASURED SLOWER at sample-scene sizes (28.6 vs 18.2 ms/step for a
-    # 12-body pile on v5e: the fused 144-tangent autodiff Hessian
-    # vectorizes better than many small per-pair Hessians), so default off;
-    # the crossover would need far more bodies than vertices per body.
+    # off by default: the fused 144-tangent autodiff Hessian is one large
+    # program where this path is many small per-pair Hessians. Not measured
+    # on the GPU.
     analytic_hessian: bool = False
 
 
@@ -275,10 +273,10 @@ class AbdModel:
     # ------------------------------------------------- one-hot gather operators
     def _gather_ops(self, cand, ee_cand):
         """Per-step 0/1 gather matrices for the candidate fetches (same
-        rationale as CoupledModel._gather_ops: per-env dynamic gathers are
-        issue-bound on TPU and re-execute in every energy/hvp/feasibility
-        eval — and jax.hessian multiplies them by 12B tangents on the dense
-        path; a tiny one-hot matmul does the fetch on the MXU)."""
+        rationale as CoupledModel._gather_ops: the candidate indices are step
+        constants, while the fetch re-executes in every energy/hvp/
+        feasibility eval — and jax.hessian multiplies it by 12B tangents on
+        the dense path; a tiny one-hot matmul does the fetch)."""
         Vt = self.vert_body.shape[0]
         opTri = opEE = opTB = None
         if cand is not None:
@@ -301,9 +299,9 @@ class AbdModel:
     def _tri_rows(self, x, ci, ops):
         """(Vt, K, 3, 3) candidate-triangle corners.
 
-        precision=HIGHEST makes the 0/1 matmul an EXACT gather — the TPU
-        default rounds to bf16, injecting coordinate error into barrier
-        distances and feasibility floors (round-4 advice)."""
+        precision=HIGHEST makes the 0/1 matmul an EXACT gather — default
+        precision (TF32 on a GPU) rounds the coordinates, injecting error
+        into barrier distances and feasibility floors."""
         if ops is None or ops[0] is None:
             return x[self.tris[ci]]
         return jnp.matmul(
@@ -520,8 +518,7 @@ class AbdModel:
         jax.hessian over a tiny closure with 3..15 tangents. All
         contributions are accumulated SCATTER-FREE: 12x12 blocks
         segment-summed by (row body, col body) into a (B, B, 12, 12) grid
-        and reshaped (TPU scatters at ~6.5 ns/element would dominate the
-        whole step otherwise).
+        and reshaped, so no scatter runs in the Newton loop.
         """
         c = self.cfg
         B = self.num_bodies
@@ -879,6 +876,7 @@ class AbdModel:
         return q_new, qd_new
 
     # ----------------------------------------------------------------- public
+    @full_f32_solve
     def step(
         self,
         state: AbdState,

@@ -1,7 +1,7 @@
 """Unified contact world: FEM soft bodies + dynamic affine bodies (ABD)
 in ONE Newton solve.
 
-The TPU-native counterpart of libuipc's single contact world over its
+The batched counterpart of libuipc's single contact world over its
 ``GlobalVertexManager / FiniteElementMethod / AffineBodyDynamics``
 subsystems (reference source/tacex_uipc/tacex_uipc/sim/uipc_sim.py:204-208:
 one ``world.advance()`` resolves every pair type). Round 2 of this rebuild
@@ -63,6 +63,7 @@ from .ipc import (
     _segment_crosses_triangle,
     barrier_extended,
     barrier_force_mag,
+    full_f32_solve,
 )
 
 
@@ -206,13 +207,10 @@ class CoupledModel:
         """Per-step 0/1 gather matrices for the cross-family triangle
         fetches.
 
-        TPU: a per-env dynamic-index gather is issue-bound (~ns/row,
-        BASELINE.md sensor log) and RE-EXECUTES inside every energy / hvp /
-        feasibility evaluation of the Newton solve (~400 per env-step,
-        scaling linearly with the env batch — the measured ~31 ms/env-step
-        wall, scripts/benchmarking/profile_coupled.py). The candidate
-        indices are step constants, so the same fetch is a small one-hot
-        matmul on the MXU, built once per step: opA (Vs*K*3, Va) rows
+        A per-env dynamic-index gather RE-EXECUTES inside every energy /
+        hvp / feasibility evaluation of the Newton solve (~400 per
+        env-step). The candidate indices are step constants, so the same
+        fetch is a small one-hot matmul, built once per step: opA (Vs*K*3, Va) rows
         select ABD triangle corners, opB (Va*K*3, V) rows select FEM
         surface-triangle corners, opT (Vs*K, B) selects per-candidate body
         rows. All three are tiny (the tables have 8-216 rows)."""
@@ -232,9 +230,9 @@ class CoupledModel:
         """(Vs, K, 3, 3) ABD triangle corners per FEM-vertex candidate.
 
         precision=HIGHEST on all three one-hot matmuls: full-f32 makes the
-        0/1 product an EXACT gather; the TPU default would round coordinates
-        to bf16 before they feed barrier distances and feasibility floors
-        (round-4 advice)."""
+        0/1 product an EXACT gather; default precision (TF32 on a GPU) would
+        round coordinates before they feed barrier distances and
+        feasibility floors."""
         if ops is None:
             return y[self.abd.tris[candA]]
         shp = candA.shape + (3, 3)
@@ -390,7 +388,7 @@ class CoupledModel:
         candB, validB = self._cross_candidates_b(x, y0)
         cross_cand = (candA, validA, candB, validB)
         # one-hot gather operators for the cross families (step constants;
-        # turn every in-solve candidate fetch into a tiny MXU matmul — see
+        # turn every in-solve candidate fetch into a tiny matmul — see
         # _gather_ops), plus the FEM model's own families and the
         # x-independent static-triangle prefetch
         ops = self._gather_ops(candA, candB)
@@ -645,6 +643,7 @@ class CoupledModel:
         return x_new, v_new, q_new, qd_new
 
     # ----------------------------------------------------------------- public
+    @full_f32_solve
     def step(
         self,
         fem_state: SoftBodyState,

@@ -9,7 +9,7 @@ inversion-safe Neo-Hookean of Smith et al. 2018:
 
 No logs or square roots of J — well-defined for inverted elements, so a
 Newton solver with plain backtracking stays NaN-free. Gradients and
-Hessian-vector products come from autodiff: on TPU the energy is a dense
+Hessian-vector products come from autodiff: the energy is a dense
 fused gather + 3x3 algebra over all tets; there is no sparse assembly at all
 (SURVEY §7.1.3 — this is XLA territory, not CUDA-style SpMV).
 """

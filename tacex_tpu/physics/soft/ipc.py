@@ -1,6 +1,6 @@
 """Batched implicit FEM soft-body solver with barrier contact (IPC-style).
 
-The TPU-native replacement for libuipc's CUDA engine (reference SURVEY §2.2
+The batched JAX replacement for libuipc's CUDA engine (reference SURVEY §2.2
 row 1: penetration-free FEM + barrier-energy Newton with line search, PCG
 linear solve). Architecture, re-thought for XLA instead of translated:
 
@@ -12,7 +12,7 @@ linear solve). Architecture, re-thought for XLA instead of translated:
     + elastic(x) + barrier(sdf(x)) + attachments(x); gradients via autodiff.
   * Newton directions from matrix-free conjugate gradient on autodiff
     Hessian-vector products — no sparse assembly, no preconditioner
-    machinery: dense fused tensor ops, exactly what the MXU/VPU want.
+    machinery: dense fused tensor ops.
   * Contact is gel-vs-analytic-rigid-SDF (sphere/box/capsule/plane): the
     log-barrier of IPC applied to surface-vertex signed distances. The
     feasibility ("CCD") check in the line search is d(x) > 0 for all surface
@@ -31,6 +31,7 @@ Solver knob names follow UipcSimCfg (reference uipc_sim.py:32-131):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -294,6 +295,25 @@ def barrier_force_mag(d, kappa: float, d_hat: float):
     d2b_d0 = 2.0 * lg + 4.0 * (d0 - d_hat) / d0 - (d0 - d_hat) ** 2 / d0**2
     g = jnp.where(d < d0, db_d0 + d2b_d0 * (d - d0), g_core)
     return jnp.where(d < d_hat, kappa * jnp.abs(g), 0.0)
+
+
+def full_f32_solve(step):
+    """Trace a solver step with every float32 contraction at full precision.
+
+    Default precision runs float32 matmuls in TF32 on a GPU (10 mantissa
+    bits). The solves cannot afford that: barriers act at 1e-3-scale
+    distances, FEM deformation gradients sit near the identity and ABD's
+    A^T A - I cancels. On an H100, one grasp-lift step in TF32 left the gel
+    ~1e-4 m from the CPU's float32 result, twice what a one-ulp
+    perturbation of the state moves it; at full precision ~1e-5 m.
+    """
+
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return step(*args, **kwargs)
+
+    return wrapped
 
 
 @configclass
@@ -622,10 +642,9 @@ class SoftBodyModel:
     # ------------------------------------------------- one-hot gather operators
     def _gather_ops(self, self_cand, ee_cand):
         """Per-step 0/1 gather matrices for the x-dependent candidate
-        fetches (same rationale as CoupledModel._gather_ops: per-env
-        dynamic-index gathers are issue-bound on TPU and re-execute inside
-        every energy/hvp/feasibility evaluation; the indices are step
-        constants, so each fetch is a tiny one-hot matmul on the MXU)."""
+        fetches (same rationale as CoupledModel._gather_ops: the fetches
+        re-execute inside every energy/hvp/feasibility evaluation; the
+        indices are step constants, so each fetch is a tiny one-hot matmul)."""
         V = self.mesh.num_vertices
         op_vt = op_ee = None
         if self_cand is not None:
@@ -646,9 +665,9 @@ class SoftBodyModel:
         """(Vs, K, 3, 3) candidate self-contact triangle corners.
 
         precision=HIGHEST: with a 0/1 matrix a full-f32 matmul reproduces
-        the gather EXACTLY; the TPU default rounds operands to bf16, which
-        would put ~tens-of-µm error into coordinates that feed barrier
-        distances and feasibility floors (round-4 advice)."""
+        the gather EXACTLY; default precision (TF32 on a GPU) rounds the
+        operands, which would put ~tens-of-µm error into coordinates that
+        feed barrier distances and feasibility floors."""
         if ops is None or ops[0] is None:
             return x[self.surface_tris[cand]]
         return jnp.matmul(
@@ -785,7 +804,7 @@ class SoftBodyModel:
             self._select_ee_candidates(x) if self.edges is not None else None
         )
         # one-hot gather operators + x-independent prefetches (step
-        # constants; every in-solve candidate fetch becomes a tiny MXU
+        # constants; every in-solve candidate fetch becomes a tiny
         # matmul — see _gather_ops)
         ops = self._gather_ops(self_cand, ee_cand)
         if static_cand is not None:
@@ -959,6 +978,7 @@ class SoftBodyModel:
         return x_new, v_new
 
     # ----------------------------------------------------------------- public
+    @full_f32_solve
     def step(
         self,
         state: SoftBodyState,

@@ -4,7 +4,7 @@ The reference tetrahedralizes arbitrary USD meshes with wildmeshing/fTetWild
 at scene-build time (reference source/tacex_uipc/tacex_uipc/utils/
 mesh_gen.py:17-106) or loads precomputed tet attributes. The gel pads this
 framework simulates are boxes, for which a *structured* hex->tet subdivision
-is better on TPU: deterministic topology shared across all envs (one mesh,
+is better for batching: deterministic topology shared across all envs (one mesh,
 vmapped states), well-conditioned elements, no external meshing dependency.
 Arbitrary precomputed (points, tets) arrays are accepted by the solver too.
 """

@@ -1,6 +1,6 @@
 """Batched implicit shell (cloth) solver with IPC barrier contact.
 
-TPU-native counterpart of libuipc's shell constitutions
+Batched counterpart of libuipc's shell constitutions
 (``NeoHookeanShell`` + ``DiscreteShellBending``; reference scope:
 uipc_sim.py:23-26 constitution list and the bunny-cloth sample
 examples/libuipc-samples/11_bunny_cloth.py:72-79 — 10 kPa membrane,

@@ -1,9 +1,9 @@
-"""Batched orthographic triangle-mesh depth rasterizer (MXU formulation).
+"""Batched orthographic triangle-mesh depth rasterizer (matmul formulation).
 
 The reference renders arbitrary USD triangle meshes with RTX ray tracing
 (reference source/tacex/tacex/gelsight_sensor.py:203-319, TiledCamera).
-Replacing that on TPU with per-ray Möller–Trumbore would be VPU-bound
-scalar soup. Instead we exploit the tactile camera being *orthographic*
+Instead of per-ray Möller–Trumbore we exploit the tactile camera being
+*orthographic*
 (parallel rays along camera +Z, the geometry Taxim's calibration assumes):
 
 In the camera frame a triangle's coverage and depth are AFFINE functions of
@@ -13,8 +13,7 @@ the pixel coordinates (px, py):
   z(p)      = alpha*px + beta*py + gamma (plane through the 3 vertices)
 
 so rasterizing P pixels against T triangles is ONE matmul
-``(P, 3) @ (3, 4T)`` — which XLA tiles onto the MXU — followed by a masked
-min over T on the VPU. Depth = nearest front-facing-or-back-facing hit with
+``(P, 3) @ (3, 4T)`` followed by a masked min over T. Depth = nearest front-facing-or-back-facing hit with
 z > near, i.e. exactly first-hit ray casting, no BVH, no winding rules.
 
 Memory is bounded by scanning triangle chunks with a running (P,) min, so
@@ -98,7 +97,7 @@ def raster_depth(
     pvec = jnp.concatenate([pix, jnp.ones_like(pix[:, :1])], -1)  # (P, 3)
 
     if T <= chunk:
-        out = jnp.einsum("pk,tkj->ptj", pvec, coeffs)  # (P, T, 4) on the MXU
+        out = jnp.einsum("pk,tkj->ptj", pvec, coeffs)  # (P, T, 4)
         inside = (out[..., 0] >= 0) & (out[..., 1] >= 0) & (out[..., 2] >= 0)
         z = out[..., 3]
         return jnp.where(inside & (z > near), z, BIG).min(-1)

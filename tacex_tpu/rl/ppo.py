@@ -1,4 +1,4 @@
-"""PPO in pure JAX (flax/optax): the RL layer of the framework.
+"""PPO in pure JAX (optax): the RL layer of the framework.
 
 Replaces the reference's skrl/rsl_rl/rl_games training stacks (reference
 scripts/reinforcement_learning/skrl/train.py) with a single jitted

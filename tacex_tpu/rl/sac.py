@@ -16,12 +16,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
 
 from ..core.config import configclass
+from .networks import dense, dense_init
 
 
 @configclass
@@ -41,31 +41,61 @@ class SACConfig:
     warmup_steps: int = 1000
 
 
-class GaussianPolicy(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GaussianPolicy:
+    """MLP -> (mean, log_std); layers Dense_0.. in creation order, as the
+    checkpoints under ``logs/`` store them."""
+
     action_dim: int
     hidden: tuple = (256, 256)
 
-    @nn.compact
-    def __call__(self, x):
-        for h in self.hidden:
-            x = nn.relu(nn.Dense(h)(x))
-        mean = nn.Dense(self.action_dim)(x)
-        log_std = jnp.clip(nn.Dense(self.action_dim)(x), -10.0, 2.0)
+    def init(self, key: jax.Array, x: jax.Array) -> dict:
+        keys = jax.random.split(key, len(self.hidden) + 2)
+        dims = (x.shape[-1],) + tuple(self.hidden)
+        params = {f"Dense_{i}": dense_init(keys[i], dims[i], dims[i + 1]) for i in range(len(self.hidden))}
+        n = len(self.hidden)
+        params[f"Dense_{n}"] = dense_init(keys[n], dims[-1], self.action_dim)
+        params[f"Dense_{n + 1}"] = dense_init(keys[n + 1], dims[-1], self.action_dim)
+        return {"params": params}
+
+    def apply(self, params: dict, x: jax.Array):
+        p = params["params"]
+        n = len(self.hidden)
+        for i in range(n):
+            x = jax.nn.relu(dense(p[f"Dense_{i}"], x))
+        mean = dense(p[f"Dense_{n}"], x)
+        log_std = jnp.clip(dense(p[f"Dense_{n + 1}"], x), -10.0, 2.0)
         return mean, log_std
 
 
-class TwinQ(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TwinQ:
+    """Two Q MLPs over concat(obs, act); layers Dense_0.. in creation
+    order, the first critic's numbered before the second's."""
+
     hidden: tuple = (256, 256)
 
-    @nn.compact
-    def __call__(self, obs, act):
+    def init(self, key: jax.Array, obs: jax.Array, act: jax.Array) -> dict:
+        dims = (obs.shape[-1] + act.shape[-1],) + tuple(self.hidden) + (1,)
+        per_q = len(dims) - 1
+        keys = jax.random.split(key, 2 * per_q)
+        params = {
+            f"Dense_{q * per_q + i}": dense_init(keys[q * per_q + i], dims[i], dims[i + 1])
+            for q in range(2)
+            for i in range(per_q)
+        }
+        return {"params": params}
+
+    def apply(self, params: dict, obs: jax.Array, act: jax.Array):
+        p = params["params"]
         x = jnp.concatenate([obs, act], axis=-1)
+        per_q = len(self.hidden) + 1
         qs = []
-        for _ in range(2):
+        for q in range(2):
             h = x
-            for hd in self.hidden:
-                h = nn.relu(nn.Dense(hd)(h))
-            qs.append(nn.Dense(1)(h)[..., 0])
+            for i in range(per_q - 1):
+                h = jax.nn.relu(dense(p[f"Dense_{q * per_q + i}"], h))
+            qs.append(dense(p[f"Dense_{q * per_q + per_q - 1}"], h)[..., 0])
         return qs[0], qs[1]
 
 

@@ -1,4 +1,4 @@
-"""FEM-surface marker flow (ManiSkill-ViTac protocol) — batched, TPU-first.
+"""FEM-surface marker flow (ManiSkill-ViTac protocol) — batched.
 
 Reimplements the reference's ``VisionTactileSensorUIPC`` marker tracking
 (reference source/tacex/.../fem_based/sim/tactile_sensor_sapienipc_modified.py:

@@ -8,7 +8,7 @@ Reference behavior spec: reference source/tacex/.../fots/sim/
 marker_motion.py:22-219 and fots/fots_marker_sim.py:26-446. The reference
 implementation loops per env in Python over CPU numpy and keeps an unbounded
 per-env trajectory list; only ``traj[0]`` and ``traj[-1]`` are ever read
-(marker_motion.py:177-207), so the TPU version carries a fixed-size
+(marker_motion.py:177-207), so this version carries a fixed-size
 ``(traj_start, traj_curr)`` state and evaluates everything batched:
 ``(num_envs, rows*cols)`` markers in one fused program — no host round trips.
 
@@ -170,7 +170,7 @@ def draw_marker_image(
 ) -> jax.Array:
     """Rasterize markers as anti-aliased dark dots, (N, h, w) in [0, 1].
 
-    TPU-native replacement for the reference's per-marker patch blitting
+    Batched replacement for the reference's per-marker patch blitting
     (fots_marker_sim.py:346-446): a smooth disk splat evaluated as a soft
     min-distance field over all markers — one fused elementwise program.
     """
@@ -180,8 +180,7 @@ def draw_marker_image(
     d2 = ((px[None, :, :, None, :] - markers[:, None, None, :, :]) ** 2).sum(-1)  # (N, h, w, M)
     r = cfg.marker_dot_radius_px
     # quadratic bump instead of a gaussian: visually equivalent anti-aliased
-    # dots without N*h*w*M transcendentals (measured 6.8 -> ~2 ms at
-    # 4096x24x32x99 on v5e)
+    # dots without N*h*w*M transcendentals
     support = 2.5 * r * r
     intensity = (jnp.maximum(1.0 - d2 / support, 0.0) ** 2).max(axis=-1)  # (N, h, w)
     return 1.0 - intensity

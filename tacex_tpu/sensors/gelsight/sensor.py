@@ -1,6 +1,6 @@
 """GelSightSensor: batched, functional tactile sensor facade.
 
-The TPU rebuild of the reference's ``GelSightSensor`` (reference
+The batched rebuild of the reference's ``GelSightSensor`` (reference
 source/tacex/tacex/gelsight_sensor.py:31-631). Where the reference is an
 Isaac-Lab ``SensorBase`` driving a TiledCamera and mutating torch buffers,
 this version is a pure function of its inputs: the environment's depth
@@ -112,6 +112,21 @@ class GelSightSensor:
         dist = jnp.maximum(min_dist - ocfg.gelpad_to_camera_min_distance, 0.0)
         return jnp.where(dist <= ocfg.gelpad_height, (ocfg.gelpad_height - dist) * 1000.0, 0.0)
 
+    def gel_surface(self, height_map_mm: jax.Array, indent: jax.Array):
+        """The pressed gel at tactile resolution: (deformed height (N, h, w)
+        mm, contact mask, surface-gradient magnitude, gradient direction).
+        ``height_map_mm`` is at camera resolution, ``indent`` (N,) mm."""
+        n = height_map_mm.shape[0]
+        th, tw = self.tactile_res[1], self.tactile_res[0]
+        if height_map_mm.shape[-2:] != (th, tw):
+            height_map_mm = jax.image.resize(height_map_mm, (n, th, tw), method="linear")
+        shifted = taxim_optical.shift_height_map(height_map_mm, indent)
+        deformed, contact_mask = taxim_optical.compute_gel_deformation(self.calib, shifted)
+        grad_mag, grad_dir = taxim_optical.generate_normals(
+            self.calib, -deformed / self.calib.sensor_params.pixmm
+        )
+        return deformed, contact_mask, grad_mag, grad_dir
+
     def update(
         self,
         state: GelSightSensorState,
@@ -143,18 +158,11 @@ class GelSightSensor:
         if not (self._optical_enabled or self._markers_enabled):
             return state, out
 
-        # Resize to tactile resolution if needed.
         th, tw = self.tactile_res[1], self.tactile_res[0]
-        hm_t = height_map
-        if hm_t.shape[-2:] != (th, tw):
-            hm_t = jax.image.resize(hm_t, (n, th, tw), method="linear")
-
-        shifted = taxim_optical.shift_height_map(hm_t, indent)
-        deformed, contact_mask = taxim_optical.compute_gel_deformation(self.calib, shifted)
+        deformed, contact_mask, grad_mag, grad_dir = self.gel_surface(height_map, indent)
 
         if self._optical_enabled:
             deformed_px = deformed / self.calib.sensor_params.pixmm
-            grad_mag, grad_dir = taxim_optical.generate_normals(self.calib, -deformed_px)
             raw = taxim_optical.shade(self.calib, grad_mag, grad_dir)
             if self.cfg.optical_sim_cfg.with_shadow:
                 raw = taxim_optical._shadow_pass_compact(

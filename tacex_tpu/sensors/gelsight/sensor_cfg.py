@@ -6,7 +6,8 @@ gpu_taxim/taxim_sim_cfg.py, fots/fots_marker_sim_cfg.py:15-76, and the
 GelSight Mini preset tacex_assets/sensors/gelsight_mini/gsmini_cfg.py:15-76)
 so reference task configs translate 1:1. Backend selection is by config
 *presence* (optical_sim_cfg / marker_motion_sim_cfg), mirroring the
-class-as-config plugin pattern.
+class-as-config plugin pattern. The reference's ``device`` fields are
+left out: JAX places arrays itself.
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ class TaximSimulatorCfg:
     tactile_img_res: tuple = (320, 240)  # (width, height)
     gelpad_height: float = 0.0045  # meters
     gelpad_to_camera_min_distance: float = 0.024  # meters
-    device: str = "tpu"  # kept for API parity; placement is managed by JAX
 
 
 @configclass
@@ -71,7 +71,6 @@ class FOTSMarkerSimulatorCfg:
             return self.num_markers_col * self.num_markers_row
 
     marker_params: "FOTSMarkerSimulatorCfg.MarkerParams" = None
-    device: str = "tpu"
 
     def __post_init__(self):
         if self.marker_params is None:
@@ -103,7 +102,6 @@ class GelSightSensorCfg:
     optical_sim_cfg: TaximSimulatorCfg | None = None
     marker_motion_sim_cfg: FOTSMarkerSimulatorCfg | None = None
     compute_indentation_depth_class: Literal["optical_sim", "marker_motion_sim"] = "optical_sim"
-    device: str = "tpu"
 
     def __post_init__(self):
         if self.case_dimensions is None:

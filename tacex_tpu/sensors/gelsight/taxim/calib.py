@@ -59,9 +59,8 @@ class TaximCalib:
     """Calibration pytree at a fixed working resolution ``(h, w)``."""
 
     poly_lut: jax.Array  # (num_bins*num_bins, 6, 3) float32, RGB
-    poly_lut_padded: jax.Array  # (num_bins*num_bins, 32): rows padded to the
-    # sublane width — TPU gathers of 32-lane-aligned rows are ~1.5x faster
-    # than 18-wide rows (measured on v5e)
+    poly_lut_padded: jax.Array  # (num_bins*num_bins, 32): the 18 coefficients
+    # of a row padded to 32, the table shade() gathers from
     gel_map: jax.Array  # (h, w) float32, mm, max-normalized to 0
     background: jax.Array  # (h, w, 3) float32 in [0, 1]
     shadow_fan_angles: jax.Array  # (num_dirs, num_fan_rays) float32, radians

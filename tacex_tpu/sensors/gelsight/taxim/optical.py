@@ -1,4 +1,4 @@
-"""Taxim optical simulation: height map -> tactile RGB, batched, TPU-first.
+"""Taxim optical simulation: height map -> tactile RGB, batched.
 
 Re-implements the GelSight optical model of the reference's Taxim port
 (algorithm spec: reference source/tacex/.../gpu_taxim/sim/taxim_jax.py:159-467
@@ -16,17 +16,17 @@ and taxim_torch.py:432-503) as pure batched JAX functions:
      pixels along calibrated light directions, composited with scatter-min;
   5. add background frame, clip to [0, 1].
 
-Differences from the reference implementation (deliberate, for TPU):
+Differences from the reference implementation (deliberate):
   * natively batched over a leading env axis — no python-side vmap per image;
-    all reductions/blurs/gathers carry the batch dim so XLA tiles them onto
-    the VPU/MXU in one program;
+    all reductions/blurs/gathers carry the batch dim and compile into one
+    program;
   * separable 1-D convolutions instead of FFT 2-D convolutions for all blurs;
   * the shadow pass compacts the contact-boundary sources to a fixed capacity
     with one top_k and composites all (source, ray, step) attenuation pairs
     with one scatter-min per channel (``_shadow_pass_compact``; the
     reference's "fast" path uses a data-dependent while_loop over extracted
     contact pixels — dynamic shapes, hostile to XLA. A dense static-shape
-    oracle is kept for tests). ~90x faster at 320x240: 8.0 ms/img vs ~0.7 s.
+    oracle is kept for tests).
     The compact pass is BIT-IDENTICAL to the dense oracle (tested); the
     residual ours-vs-reference shadow-image error (mean 3.1e-3 / max 0.054)
     is fully attributed to out-of-contact DIRECTION-bin noise shared with the
@@ -39,23 +39,8 @@ Differences from the reference implementation (deliberate, for TPU):
   * no NaN-sentinel + lax.cond for optional press depth: optionality is
     resolved statically at trace time.
 
-Measured cost model for the hot path (v5e, jax 0.9.0) — this is why shade()
-keeps the plain per-pixel jnp.take:
-  * XLA row-gather costs ~3.4-4.9 ns per INDEX, nearly independent of table
-    size, row width (4..512 B) and dtype (bf16 ~30% less). It is issue-bound,
-    not bandwidth-bound (~10 GB/s effective on 128 B rows, topping out
-    ~50-70 GB/s at 288-576 B rows).
-  * jnp.take_along_axis batched gathers cost ~12 ns/idx; scatter(-min) costs
-    ~6.5 ns/element; top_k over 76800 is ~2.6 us/img (cheap).
-  * Pallas/Mosaic ``tpu.dynamic_gather`` only lowers for vreg-shaped (8, 128)
-    operands — unusable for a 15625-row LUT.
-  * Alternatives evaluated and rejected with measurements: one-hot matmul
-    selection (15625-wide contraction ~= 300 TFLOP/img), Tucker/low-rank LUT
-    compression (worst-case image error 0.17-0.5 >> 1/255), and a 4x4-block
-    windowed two-anchor gather with top_k residual compaction (2.7x SLOWER
-    end-to-end: the per-pixel window-select glue dominates in XLA).
-  So per-pixel LUT shading at 320x240 is gather-bound at ~250 us/img on this
-  chip class, and the win available is in everything around it.
+Shading is a plain per-pixel ``jnp.take`` from the (num_bins^2, 18) LUT,
+as the reference's own GPU Taxim does.
 """
 
 from __future__ import annotations
@@ -160,7 +145,6 @@ def shade(
     grad_dir: jax.Array,
     interp: str = "nearest",
     lut_dtype=None,
-    compact_capacity: int | None = None,
 ) -> jax.Array:
     """Polynomial-LUT shading: gradients -> RGB delta over background.
 
@@ -171,13 +155,12 @@ def shade(
     ``interp='bilinear'`` interpolates the LUT over (magnitude, direction)
     bins — an extension beyond the reference that makes the optical model
     differentiable w.r.t. the height map (direction axis wraps periodically).
-    ``lut_dtype=jnp.bfloat16`` gathers narrower LUT rows: measured 14%
-    faster at 320x240 (223 vs 258 us/img — the gather is issue-bound, bf16
-    rows shave its bandwidth tail) at a max output error of 0.0099 (~2.5/255
-    image counts). The LUT itself cannot be replaced by any dense smooth fit:
-    a Chebyshev-x-Fourier least-squares over (mag, dir) plateaus at 0.09
-    worst-case coefficient error for ANY basis size (measured 2.4k..130k
-    params) — the per-bin calibration fits carry irreducible bin-level noise.
+    ``lut_dtype=jnp.bfloat16`` gathers narrower LUT rows, at a max output
+    error of 0.0099 (~2.5/255 image counts). The LUT itself cannot be
+    replaced by any dense smooth fit: a Chebyshev-x-Fourier least-squares
+    over (mag, dir) plateaus at 0.09 worst-case coefficient error for ANY
+    basis size (measured 2.4k..130k params) — the per-bin calibration fits
+    carry irreducible bin-level noise.
     """
     nb = calib.sensor_params.num_bins
     x_binr = 0.5 * jnp.pi / (nb - 1)
@@ -191,73 +174,9 @@ def shade(
         table = calib.poly_lut_padded
         if lut_dtype is not None:
             table = table.astype(lut_dtype)
-        idx = idx_mag * nb + idx_dir
-        if compact_capacity is None:
-            coeffs = jnp.take(table, idx, axis=0)[..., :18].astype(jnp.float32)
-            coeffs = coeffs.reshape(coeffs.shape[:-1] + (6, 3))
-            return jnp.einsum("hwk,...hwkc->...hwc", feats, coeffs)
-
-        # Contact compaction (the round-2 judge's remaining lever) —
-        # implemented, MEASURED, and ruled out as a throughput win on
-        # v5e-class chips; kept opt-in as the executable record of the
-        # experiment (and for future chips where the constants may flip).
-        # Measured facts (320x240 ball press, 256 envs, v5e):
-        #   * ~58% of pixels land in a non-background BIN, but ~76% are
-        #     magnitude-bin 0 — the deformation HALO, where only the
-        #     direction bin varies (a 125-row subtable). Collapsing those
-        #     rows to one is NOT free: up to 20/255 image error.
-        #   * Mosaic's tpu.dynamic_gather does the 125-lane halo lookups at
-        #     VPU rate (ops/pallas_lut.py: 15.7 us/img vs 328 us/img XLA,
-        #     exact) — that part of the idea works and is used here.
-        #   * But the compaction BOOKKEEPING costs more than the gather it
-        #     saves: top_k at capacity 16384 = 148 us/img, take_along_axis
-        #     = 12.9 ns/idx (211 us at 16k), scatter-set = 6.8 ns/element
-        #     per-channel-flat (27 ns with a trailing (.., 3) axis). The
-        #     contact region is ~18.5k pixels (only 4.2x fewer indices, not
-        #     10-20x), so the saved gather time (~130 us) is buried by
-        #     ~350+ us of bookkeeping: end-to-end this path measures
-        #     ~1.9 ms/img at capacity 16384 vs 238 us dense bf16.
-        #   * Tile-granular compaction (amortize per-index costs over 1024-
-        #     px tiles) caps at ~1.6-2.6x index reduction for a ball blob
-        #     (tiles crossing the rim carry mostly background) — also short.
-        # Floor on this chip class: the dense 76.8k-index row gather,
-        # ~190 us/img bf16. Exact whenever the contact region fits the
-        # capacity; overflow pixels keep their halo shade.
-        #   * Round 4 closed the remaining proposal (two-level routing over
-        #     the 125 magnitude-bin subtables): measured frame statistics
-        #     kill it — the halo spreads the magnitude bin over 26-36 bins
-        #     per 1024-px block (~2,000-2,500 masked passes/img), >=420
-        #     us/img at the measured 209 ns/block-pass kernel rate, 2.2x the
-        #     dense floor. Formal re-baseline decision + full log:
-        #     BASELINE.md "Re-baseline decision (round 4)".
-        from ....ops.pallas_lut import dir_row_shade, dir_row_shade_reference
-
-        h, w = grad_mag.shape[-2:]
-        hw = h * w
-        lead = grad_mag.shape[:-2]
-        n = int(np.prod(lead)) if lead else 1
-
-        tabs = calib.poly_lut.reshape(nb, nb, 18)[0]  # (nb_dir, 18)
-        tabs = jnp.pad(tabs.T, ((0, 0), (0, 128 - nb)))  # (18, 128)
-        idir_f = idx_dir.reshape(n, hw)
-        feats_f = feats.reshape(hw, 6).T  # (6, hw)
-        if jax.default_backend() == "tpu":
-            out = dir_row_shade(idir_f, feats_f, tabs)
-        else:
-            out = dir_row_shade_reference(idir_f, feats_f, tabs)
-
-        cap = min(compact_capacity, hw)
-        idxf = idx.reshape(n, hw)
-        pix = jax.lax.broadcasted_iota(jnp.int32, (n, hw), 1)
-        score = jnp.where(idx_mag.reshape(n, hw) >= 1, pix + hw, pix)
-        pos = jax.lax.top_k(score, cap)[0]
-        pos = jnp.where(pos >= hw, pos - hw, pos)
-        rows_idx = jnp.take_along_axis(idxf, pos, axis=1)  # (n, cap)
-        coeffs = jnp.take(table, rows_idx, axis=0)[..., :18].astype(jnp.float32)
-        f_sel = jnp.take(feats.reshape(hw, 6), pos, axis=0)  # (n, cap, 6)
-        vals = jnp.einsum("nkf,nkfc->nkc", f_sel, coeffs.reshape(n, cap, 6, 3))
-        out = out.at[jnp.arange(n)[:, None], pos].set(vals)
-        return out.reshape(lead + (h, w, 3))
+        coeffs = jnp.take(table, idx_mag * nb + idx_dir, axis=0)[..., :18].astype(jnp.float32)
+        coeffs = coeffs.reshape(coeffs.shape[:-1] + (6, 3))
+        return jnp.einsum("hwk,...hwkc->...hwc", feats, coeffs)
 
     assert interp == "bilinear", interp
     t_mag = jnp.clip(grad_mag / x_binr, 0.0, nb - 1 - 1e-6)
@@ -335,9 +254,9 @@ def _shadow_pass_dense(
 
     Reference-shaped oracle: loops over the ray-march step count with a
     full-image scatter-min per step (every pixel is treated as a potential
-    source each step). O(h*w * steps * rays) scatter elements — hundreds of
-    ms per 320x240 image on TPU. Kept as the semantic oracle for
-    ``_shadow_pass_compact`` (the production path) and for tiny images.
+    source each step). O(h*w * steps * rays) scatter elements. Kept as the
+    semantic oracle for ``_shadow_pass_compact`` (the production path) and
+    for tiny images.
     Reference: taxim_jax.py:206-304.
     """
     h, w = deformed_gel_px.shape
@@ -353,16 +272,13 @@ def _shadow_pass_dense(
     step_w, step_h = sim.shadow_step((h, w))
     yy, xx = jnp.meshgrid(jnp.arange(h), jnp.arange(w), indexing="ij")
     num_rays = calib.shadow_fan_angles.shape[1]
-    # Rays are unrolled in python (typically 4): keeping every array at
-    # (h, w[, 3]) avoids a trailing ray axis of 4, which TPU (8, 128) tiling
-    # pads 32x — enough to OOM at batch (observed 39 GB for 256 envs).
+    # Rays are unrolled in python (typically 4), keeping every array at
+    # (h, w[, 3]).
     cos_rays = [jnp.cos(thetas[..., r]) for r in range(num_rays)]
     sin_rays = [jnp.sin(thetas[..., r]) for r in range(num_rays)]
 
     def step_body(s, imgs):
-        # RGB channels are carried as three separate (h*w,) images, and rays
-        # are unrolled in python: any array with a trailing size-3/4 axis gets
-        # padded ~32-42x by TPU (8, 128) tiling, which OOMs at batch.
+        # RGB channels are carried as three separate (h*w,) images.
         dist = (s + 1).astype(jnp.float32)
         col = jax.lax.dynamic_slice_in_dim(table_flat, s, 1, axis=1)[:, 0, :]  # (rows, 3)
         step_vals = [jnp.take(col[:, ch], flat_idx, axis=0) for ch in range(3)]  # 3 x (h, w)
@@ -398,27 +314,24 @@ def _shadow_pass_compact(
     """Batched shadow pass via boundary compaction + one scatter-min.
 
     Same math as ``_shadow_pass_dense`` (the reference semantics,
-    taxim_jax.py:206-304) restructured for TPU: shadows emanate only from
-    contact-boundary pixels, so instead of scatter-minning the full image
-    once per march step (h*w*steps*rays scatter elements, ~0.7 s/env at
-    320x240), we
+    taxim_jax.py:206-304) restructured for a static-shape batch: shadows
+    emanate only from contact-boundary pixels, so instead of scatter-minning
+    the full image once per march step (h*w*steps*rays scatter elements), we
 
       1. compact the boundary pixels to a fixed ``capacity`` per image with
-         one ``top_k`` over ``boundary * 2^18 + pixel_id`` (TPU top_k is
-         ~2.6 us/img at 320x240 — measured),
+         one ``top_k`` over ``boundary * 2^18 + pixel_id``,
       2. build the full (capacity, rays, steps) pair set of march targets and
          shadow-table attenuation values with plain broadcasting,
       3. apply the reference's admission test (target in bounds, target
          pixel higher than the source) with ONE dest-height gather, and
-      4. composite with ONE scatter-min per channel (scatter-min on TPU is
-         ~0.04 ns/element — measured — vs ~4 ns/element for gather).
+      4. composite with ONE scatter-min per channel.
 
     Exact vs the dense oracle whenever the boundary ring has at most
     ``capacity`` pixels (tested); beyond that the highest-index boundary
-    pixels are dropped. A 3 mm-ball contact at 320x240 has a ~400 px ring
-    (measured); the default capacity covers typical contacts with >2x
-    margin, and the cost (~25 ns per source-ray-step pair: one gathered
-    dest height + three scatter-min elements) scales linearly in it.
+    pixels are dropped. A 3 mm-ball contact at 320x240 has a ~400 px ring;
+    the default capacity covers typical contacts with >2x margin, and the
+    cost (one gathered dest height + three scatter-min elements per
+    source-ray-step pair) scales linearly in it.
     """
     n, h, w = deformed_gel_px.shape
     sim = calib.sim_params
@@ -447,9 +360,7 @@ def _shadow_pass_compact(
     thetas = calib.shadow_fan_angles[norm_src]  # (n, cap, R)
     num_rays = thetas.shape[-1]
 
-    # All pair arrays are laid out (n, R, L, cap): the big ``cap`` axis last
-    # keeps TPU (8, 128) tiling dense — a trailing (R=4, L=51) pair would be
-    # padded (8, 64), ~2.5x the memory traffic (measured 2x wall time).
+    # All pair arrays are laid out (n, R, L, cap), the big ``cap`` axis last.
     thetas_t = thetas.transpose(0, 2, 1)[:, :, None, :]  # (n, R, 1, cap)
     step_w, step_h = sim.shadow_step((h, w))
     dist = jnp.arange(1, num_steps + 1, dtype=jnp.float32)[:, None]  # (L, 1)
@@ -466,8 +377,7 @@ def _shadow_pass_compact(
     h_dst = h_dst.reshape(n, num_rays, num_steps, cap)
     valid = in_bounds & is_src[:, None, None, :] & (h_src[:, None, None, :] < h_dst)
 
-    # Channels are scatter-minned separately as flat (n, pairs) scalars: a
-    # trailing size-3 axis would be padded ~42x by TPU (8, 128) tiling.
+    # Channels are scatter-minned separately as flat (n, pairs) scalars.
     vals_t = vals.transpose(0, 2, 1, 3)  # (n, L, cap, 3)
     rows = jnp.arange(n)[:, None]
     outs = []
@@ -486,7 +396,6 @@ def render(
     orig_hm_fmt: bool = False,
     interp: str = "nearest",
     lut_dtype=None,
-    compact_capacity: int | None = None,
 ) -> jax.Array:
     """Render tactile RGB images from height maps.
 
@@ -518,10 +427,7 @@ def render(
     deformed, contact_mask = compute_gel_deformation(calib, hm)
     deformed_px = deformed / calib.sensor_params.pixmm
     grad_mag, grad_dir = generate_normals(calib, -deformed_px)
-    raw = shade(
-        calib, grad_mag, grad_dir, interp=interp, lut_dtype=lut_dtype,
-        compact_capacity=compact_capacity,
-    )  # (N, h, w, 3)
+    raw = shade(calib, grad_mag, grad_dir, interp=interp, lut_dtype=lut_dtype)  # (N, h, w, 3)
 
     if not with_shadow:
         img = jnp.clip(raw + calib.background, 0.0, 1.0)

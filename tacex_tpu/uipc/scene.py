@@ -7,7 +7,7 @@ each attribute of the scene cfg by type into articulations / rigid objects /
 sensors / ``_uipc_objects``, with dict-style access and an ``update()`` that
 also refreshes uipc objects :503-524).
 
-TPU-native shape: entities are declared as a ``{name: cfg}`` dict; the scene
+Batched shape: entities are declared as a ``{name: cfg}`` dict; the scene
 owns one :class:`UipcSim` for every soft/affine body plus per-entity state
 pytrees for articulations and rigid primitives. Physics itself stays
 functional — the scene is the CONTAINER/lifecycle layer (build, reset,
@@ -36,7 +36,7 @@ from .sim import UipcSim, UipcSimCfg
 
 @configclass
 class RigidObjectCfg:
-    """Analytic rigid primitive entity (the TPU stand-in for USD rigid
+    """Analytic rigid primitive entity (the stand-in for USD rigid
     props: ball, plate, peg — SURVEY §2.3 Props)."""
 
     shape: str = "sphere"  # sphere | box | plane

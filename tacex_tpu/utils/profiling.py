@@ -1,6 +1,6 @@
 """Profiling and timing utilities.
 
-TPU-native counterpart of the reference's timing stack (SURVEY §5): libuipc's
+Counterpart of the reference's timing stack (SURVEY §5): libuipc's
 hierarchical ``Timer`` report (reference uipc_sim.py:286-293) and the
 benchmark harness's wall-clock splits. Provides:
 
@@ -8,12 +8,15 @@ benchmark harness's wall-clock splits. Provides:
     device work is fenced with ``block_until_ready`` so scopes measure real
     execution, not dispatch;
   * :func:`trace` — context manager around ``jax.profiler`` emitting a
-    TensorBoard-loadable trace directory for deep kernel-level analysis.
+    TensorBoard-loadable trace directory for deep kernel-level analysis;
+  * :func:`gpu_card` — the GPU's name and power limit, to report beside
+    every measurement.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from collections import defaultdict
 
@@ -77,3 +80,15 @@ def trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_card() -> str:
+    """The machine's GPUs as ``nvidia-smi`` names them, with their power
+    limits ("NVIDIA H100 80GB HBM3, 700.00 W"; several joined by "; "). A
+    card set below its maximum power runs slower under load, so every
+    measurement is reported beside this."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout
+    return "; ".join(line.strip() for line in out.splitlines() if line.strip())

@@ -83,6 +83,28 @@ class TestMultichipPPO:
         )
         assert n_sharded > 0, "no leaf ended up sharded over the env axis"
 
+    def test_train_script_shard_runs_several_iterations(self, _eight_devices):
+        """scripts/train.py --shard feeds each iteration the state the last
+        one returned, with the shardings GSPMD chose for it."""
+        import importlib.util
+        from pathlib import Path
+
+        path = Path(__file__).resolve().parents[1] / "scripts" / "train.py"
+        spec = importlib.util.spec_from_file_location("tacex_train_script", path)
+        train = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(train)
+        num_envs = 2 * N_DEV
+        args = train.build_parser().parse_args([
+            "--num_envs", str(num_envs), "--iterations", "3", "--rollouts", "2", "--shard",
+            "--agent_cfg", "mini_batches=2", "--agent_cfg", "learning_epochs=1", "--agent_cfg", "hidden=(16,)",
+        ])
+        ts, log = train.run(args)
+        assert int(ts.steps) == 3 * 2 * num_envs
+        assert all(np.isfinite(line["loss"]) for line in log["iters"])
+        leaf = jax.tree_util.tree_leaves(ts.env_state)[0]
+        assert leaf.shape[0] == num_envs
+        assert len({s.device for s in leaf.addressable_shards}) == N_DEV
+
     def test_graft_entry_dryrun(self, _eight_devices):
         """The literal driver entry point, in-process (platform already CPU)."""
         import __graft_entry__ as g

@@ -6,7 +6,11 @@ import pytest
 from tacex_tpu import native
 from tacex_tpu.physics.soft import mesh as pymesh
 
-pytestmark = pytest.mark.skipif(not native.available(), reason="native lib not built")
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if not native.available():
+        pytest.skip("no C++ compiler to build native/libtacex_geom.so")
 
 
 class TestNativeGeom:
